@@ -8,7 +8,7 @@ accuracy order of the FE / AB2 / BDF advector family against fine-dt
 truth runs.  Here the rotation has a closed-form solution, so each run is
 compared against the exact transported field directly.
 
-Results are printed as a table and appended to LEDGER_TPU.json under
+Results are printed as a table and appended to LEDGER.json under
 "advection_convergence" so the claimed orders are machine-checkable.
 
 Usage:
@@ -78,8 +78,6 @@ def run_case(dt, steps, order2, nb, M):
 def main():
     import jax
     jax.config.update("jax_enable_x64", True)
-    if os.environ.get("BENCH_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["BENCH_PLATFORM"])
 
     nb = int(os.environ.get("ADV_NB", 200))
     M = int(os.environ.get("ADV_M", 10))

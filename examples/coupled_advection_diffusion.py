@@ -15,9 +15,6 @@ import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-if os.environ.get("BENCH_PLATFORM"):
-    import jax
-    jax.config.update("jax_platforms", os.environ["BENCH_PLATFORM"])
 from ipde_tpu.geometry.curve import star
 from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection
@@ -74,7 +71,7 @@ print(f"coupled adv-diff: rel err {max(ge, re)/scale:.2e} after T={T} "
       f"(replan shape misses: {stepper.recompiles})", flush=True)
 print("final mass:", ebdyc.volume_integral(c), flush=True)
 
-# per-step cost table (VERDICT r3 item 8: device-resident timestep --
+# per-step cost table (device-resident timestep --
 # step 1 pays the compiles, later steps are replan + executable launches)
 import jax
 from ipde_tpu.utils.ledger import record

@@ -12,7 +12,7 @@ stronger than the reference's fine-dt-truth comparison).
 History for the multistep schemes is initialized from the exact solution
 (standard convergence-study setup).
 
-Results are appended to LEDGER_TPU.json under "unsteady_advection".
+Results are appended to LEDGER.json under "unsteady_advection".
 
 Usage:
     python examples/unsteady_advection_study.py
@@ -96,8 +96,6 @@ def run_case(scheme, dt, steps, ebdyc):
 def main():
     import jax
     jax.config.update("jax_enable_x64", True)
-    if os.environ.get("BENCH_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["BENCH_PLATFORM"])
     from ipde_tpu.functions import EmbeddedFunction
     from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection
     from ipde_tpu.geometry.curve import circle

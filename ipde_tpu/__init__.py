@@ -1,4 +1,4 @@
-"""ipde_tpu: TPU-native spectral solver framework for inhomogeneous elliptic
+"""ipde_tpu: spectral solver framework for inhomogeneous elliptic
 PDEs (Poisson, modified Helmholtz, Stokes) on general smooth domains.
 
 A ground-up JAX/XLA re-design with the capabilities of the reference package

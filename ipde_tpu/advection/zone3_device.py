@@ -1,4 +1,4 @@
-"""Device zone-3 departure-point Newton solves (VERDICT r2 item 7).
+"""Device zone-3 departure-point Newton solves.
 
 The semi-Lagrangian advectors' zone-3 points (newly uncovered by the
 moving boundary; reference: ipde/advection/fe_advector.py:107-171 and
@@ -9,13 +9,10 @@ fields at arbitrary parameters.  The host version costs ~16 dense
 one jitted fixed-iteration loop with convergence masks:
 
 - fields are carried as real half-spectrum coefficient tables (K, F),
-  evaluated for all P points and all F fields with two accurate-trig
-  matrices cos(s k), sin(s k) per iteration (TPU f64 sin/cos are only
-  ~5e-10: ops/kernels.accurate_sin/cos recover ~1e-14);
-- contractions use multiply+reduce (kernel_matvec pattern: TPU f64
-  dot_general is erratically inaccurate on structured operands);
+  evaluated for all P points and all F fields with two trig matrices
+  cos(s k), sin(s k) per iteration;
 - the second-order 4x4 Newton update uses a closed-form 2x2-block Schur
-  solve (device f64 LU is unsupported on TPU);
+  solve;
 - P is padded to power-of-two buckets so jit shapes stay few.
 """
 
@@ -27,8 +24,6 @@ from typing import Dict, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from ipde_tpu.ops.kernels import accurate_cos, accurate_sin
 
 _HIGH = jax.lax.Precision.HIGHEST
 
@@ -76,8 +71,8 @@ def _newton_fe(Cr, Ci, kvec, dt, xo, yo, s0, r0, valid, iters):
     def body(carry, _):
         s, r = carry
         ang = s[:, None] * kvec[None, :]
-        cos_m = accurate_cos(ang)
-        sin_m = accurate_sin(ang)
+        cos_m = jnp.cos(ang)
+        sin_m = jnp.sin(ang)
         V, D = _eval_all(cos_m, sin_m, Cr, Ci, kvec)
         Fd = {k: V[:, i] for i, k in enumerate(_FE_FIELDS)}
         Dd = {k: D[:, i] for i, k in enumerate(_FE_FIELDS)}
@@ -98,8 +93,8 @@ def _newton_fe(Cr, Ci, kvec, dt, xo, yo, s0, r0, valid, iters):
     (s, r), _ = jax.lax.scan(body, (s0, r0), None, length=iters)
     # final residual for the host-side convergence check
     ang = s[:, None] * kvec[None, :]
-    cos_m = accurate_cos(ang)
-    sin_m = accurate_sin(ang)
+    cos_m = jnp.cos(ang)
+    sin_m = jnp.sin(ang)
     V, _ = _eval_all(cos_m, sin_m, Cr, Ci, kvec)
     Fd = {k: V[:, i] for i, k in enumerate(_FE_FIELDS)}
     f1 = Fd["bx"] + r * Fd["nx"] + dt * (Fd["ub"] + r * Fd["urb"]) - xo
@@ -201,8 +196,8 @@ def _newton_so(Cr, Ci, Cro, Cio, kvec, dt, xo, yo, s0, r0, so0, ro0,
 
     def fields_at(Crt, Cit, s):
         ang = s[:, None] * kvec[None, :]
-        cos_m = accurate_cos(ang)
-        sin_m = accurate_sin(ang)
+        cos_m = jnp.cos(ang)
+        sin_m = jnp.sin(ang)
         V, D = _eval_all(cos_m, sin_m, Crt, Cit, kvec)
         return ({k: V[:, i] for k, i in idx.items()},
                 {k: D[:, i] for k, i in idx.items()})

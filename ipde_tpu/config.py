@@ -1,18 +1,13 @@
 """Global configuration for ipde_tpu.
 
 The framework targets spectral accuracy (1e-10 .. 1e-14 relative error), which
-requires float64 arithmetic.  On TPU, float64 elementwise ops and matmuls are
-supported (software-emulated by XLA), but complex128 and float64 FFT/linalg
-are NOT.  The design consequences, applied throughout the package:
+requires float64 arithmetic on the device.  Importing the package enables x64
+and makes "highest" the default matmul precision, so that no f32 product
+(f32 GMRES inner cycles, the f32 preconditioner) runs in TF32 on a GPU.
 
-  * all device arrays are real float64; complex data is carried as explicit
-    (re, im) pairs (see ``ipde_tpu.ops.cx``),
-  * Fourier transforms are implemented as f64 DFT matmuls (MXU-friendly at
-    the sizes this framework needs) with a native-FFT fast path on backends
-    that support complex128 (CPU),
-  * dense factorizations (LU/inv/lstsq) of geometry-static operators happen
-    once on the host in numpy; the device only ever applies precomputed
-    matrices.
+Complex data is carried as explicit (re, im) pairs (see ``ipde_tpu.ops.cx``);
+2D transforms use the native complex128 FFT where the backend has one
+(``backend_has_complex128``) and f64 DFT matmuls otherwise.
 
 Reference parity: the reference package (dbstein/ipde) relies on MKL/numba
 float64 throughout; see SURVEY.md section 2.
@@ -24,6 +19,7 @@ import jax
 
 # Enable x64 before anything else in the package touches jax.
 jax.config.update("jax_enable_x64", True)
+jax.config.update("jax_default_matmul_precision", "highest")
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -34,5 +30,6 @@ default_np_dtype = np.float64
 
 
 def backend_has_complex128() -> bool:
-    """True when the active backend supports complex128 (CPU does, TPU not)."""
-    return jax.default_backend() == "cpu"
+    """True when the active backend has a complex128 FFT (XLA's CPU
+    backend and cuFFT on the GPU)."""
+    return jax.default_backend() in ("cpu", "gpu")

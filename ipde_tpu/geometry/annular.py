@@ -1,6 +1,6 @@
 """Annular (Chebyshev x Fourier) geometry for the boundary-fitted strip.
 
-TPU-native rework of the reference's ApproximateAnnularGeometry /
+Rework of the reference's ApproximateAnnularGeometry /
 RealAnnularGeometry (reference: ipde/annular/annular.py:52-108,
 annular_full.py).  One convention everywhere:
 

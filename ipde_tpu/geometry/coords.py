@@ -7,7 +7,7 @@ node (cKDTree), plus inside/outside classification.
 
 Replaces the reference's external near_finder package surface:
 gridpoints_near_curve / compute_local_coordinates / points_inside_curve
-(SURVEY.md section 2.2).  TPU story: these run at geometry setup on the host;
+(SURVEY.md section 2.2).  These run at geometry setup on the host;
 the resulting index sets and coordinates are static data for the jitted solve.
 The Newton kernel itself is pure-vectorized (fixed iteration count with a
 convergence mask) so it can later be jitted for the moving-boundary path.
@@ -107,40 +107,33 @@ def points_near_curve(bdy: BoundaryCurve, px: np.ndarray, py: np.ndarray,
 
 def points_inside_curve(bdy: BoundaryCurve, px: np.ndarray, py: np.ndarray,
                         near: np.ndarray = None, r: np.ndarray = None):
-    """Even-odd (crossing number) test, vectorized over a fine polyline.
+    """Even-odd (crossing number) test against a fine polyline.
 
     For points with known signed coordinate r (from the Newton solve), the
     sign of r decides; callers pass those in to avoid ambiguity right at the
     curve.  Interior <-> r < 0 (outward normal convention).
+
+    Points are sorted by y once; the points whose y lies in an edge's
+    half-open span [min(y0, y1), max(y0, y1)) are then one contiguous run,
+    so each edge touches only the points its horizontal ray test concerns.
     """
     px = np.asarray(px, np.float64).ravel()
     py = np.asarray(py, np.float64).ravel()
     ups = bdy.resampled(max(4 * bdy.N, 512))
     xs, ys = ups.x, ups.y
-    try:
-        # C-implemented even-odd test (~10x the numpy sweep); same
-        # fine-polyline geometry, identical results on all test points
-        from matplotlib.path import Path
-        inside = Path(np.column_stack([xs, ys])).contains_points(
-            np.column_stack([px, py]))
-        if near is not None and r is not None:
-            inside[near] = r[near] < 0.0
-        return inside
-    except ImportError:
-        pass
     xe, ye = np.roll(xs, -1), np.roll(ys, -1)
-    inside = np.zeros(px.size, dtype=bool)
-    # crossing-number algorithm, chunked to bound memory
-    chunk = max(1, int(2e7 // max(xs.size, 1)))
-    for i0 in range(0, px.size, chunk):
-        sl = slice(i0, min(i0 + chunk, px.size))
-        X = px[sl][:, None]
-        Y = py[sl][:, None]
-        cond = (ys[None, :] <= Y) != (ye[None, :] <= Y)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            xint = xs[None, :] + (Y - ys[None, :]) / (ye[None, :] - ys[None, :]) * (xe[None, :] - xs[None, :])
-        crossings = np.sum(cond & (xint > X), axis=1)
-        inside[sl] = (crossings % 2) == 1
+    order = np.argsort(py, kind="stable")
+    sx, sy = px[order], py[order]
+    lo = np.searchsorted(sy, np.minimum(ys, ye), side="left")
+    hi = np.searchsorted(sy, np.maximum(ys, ye), side="left")
+    crossings = np.zeros(px.size, dtype=np.int64)
+    for e in np.flatnonzero(hi > lo):
+        a, b = lo[e], hi[e]
+        Y = sy[a:b]
+        xint = xs[e] + (Y - ys[e]) / (ye[e] - ys[e]) * (xe[e] - xs[e])
+        crossings[a:b] += xint > sx[a:b]
+    inside = np.empty(px.size, dtype=bool)
+    inside[order] = (crossings % 2) == 1
     if near is not None and r is not None:
         inside[near] = r[near] < 0.0
     return inside

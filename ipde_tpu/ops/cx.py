@@ -1,7 +1,7 @@
 """Complex arithmetic as explicit (re, im) float64 pairs.
 
-TPU (v5e) does not support complex128, so every complex quantity on device is
-carried as a pair of real float64 arrays.  ``Cx`` is a lightweight pytree pair
+Every complex quantity on device is carried as a pair of real float64
+arrays.  ``Cx`` is a lightweight pytree pair
 with the arithmetic the spectral solvers need.  Host-side numpy code converts
 freely between ``Cx`` and numpy complex via :func:`from_np` / :func:`to_np`.
 """

@@ -1,10 +1,9 @@
-"""Fourier transforms and spectral operators, TPU-native.
+"""Fourier transforms and spectral operators.
 
-TPU v5e has no complex128 FFT, so all transforms here are built from real
-float64 matmuls against precomputed DFT matrices (MXU-friendly at the sizes
-this framework needs: boundary/annular transforms are n <= ~4096).  On
-backends with complex128 support (CPU) a native ``jnp.fft`` fast path is used
-when ``native=True``.
+Transforms are built from real float64 matmuls against precomputed DFT
+matrices (boundary/annular transforms are n <= ~4096).  The 2D plan uses the
+native complex128 ``jnp.fft`` instead on backends that have one
+(``config.backend_has_complex128``), except under a mesh.
 
 This module replaces the reference's mkl_fft usage and the Nyquist-handling
 helpers (reference: ipde/utilities.py:78-124) with one design: transforms are
@@ -141,8 +140,8 @@ class FourierPlan2D:
     """2D DFT on real (nx, ny) arrays, complex output as Cx.
 
     fft2(x) = Fx @ x @ Fy^T computed with real f64 matmuls.  ``native=True``
-    uses jnp.fft (requires complex128 support; auto-selected on the CPU
-    backend where it is both supported and much faster to compile).
+    uses jnp.fft (requires a complex128 FFT; auto-selected where the
+    backend has one).
 
     The flagship use is the periodic box solve
     (reference: ipde/solvers/multi_boundary/poisson.py:30-37):
@@ -157,7 +156,8 @@ class FourierPlan2D:
     def __init__(self, nx: int, ny: int, native=None):
         self.nx, self.ny = nx, ny
         if native is None:
-            native = jax.default_backend() == "cpu"
+            from ipde_tpu.config import backend_has_complex128
+            native = backend_has_complex128()
         self.native = native
         # multi-chip: when use_mesh is set, each DFT pass runs with its
         # BATCH axis sharded over the mesh (the transform axis stays local)
@@ -174,7 +174,7 @@ class FourierPlan2D:
         sharded over `mesh` (XLA inserts the all-to-all at the transpose).
 
         With a mesh the MATMUL path is forced even where native jnp.fft
-        is the single-device default (CPU): the matmul passes are the
+        is the single-device default: the matmul passes are the
         sharded implementation, and sharding constraints around the CPU
         fft thunk trip an XLA layout RET_CHECK when the whole step is
         jitted (measured: dryrun_multichip 2026-08-21)."""
@@ -302,11 +302,9 @@ class FourierPlan2D:
 
     @staticmethod
     def _stack_on() -> bool:
-        """Field-stacked transforms are kept behind IPDE_FFT_STACK=1: on
-        the current TPU toolchain the mid-pass concatenations/transposes
-        cost MORE than the wider matmuls save (measured on chip at bench
-        size: VG Stokeslet apply 143 ms unstacked vs 269 ms stacked,
-        tools/vg_probe.py vs tools/profile_stokes.py 2026-08-19)."""
+        """Field-stacked matmul transforms are kept behind IPDE_FFT_STACK=1
+        (off by default: the mid-pass concatenations/transposes can cost
+        more than the wider matmuls save)."""
         import os
         return os.environ.get("IPDE_FFT_STACK", "").strip() == "1"
 
@@ -628,7 +626,7 @@ class DirectDFT1D:
 
 
 # ---------------------------------------------------------------------------
-# four-step (matmul Cooley-Tukey) FFT for large n on TPU
+# four-step (matmul Cooley-Tukey) FFT for large n
 # ---------------------------------------------------------------------------
 
 def _best_factor(n: int):

@@ -4,12 +4,12 @@ Replaces the reference's scipy-based ``right_gmres``
 (reference: personal_utilities.scipy_gmres.right_gmres, used by
 ipde/annular/modified_helmholtz.py:198 and ipde/annular/stokes.py:533).
 
-Design notes (TPU):
+Design notes:
   * operates on flat real float64 vectors (complex data is carried as
     (re, im) pairs elsewhere in the package; the annular operators are real
     in real space, so the Krylov space is real),
   * Arnoldi uses classical Gram-Schmidt with reorthogonalization (CGS2):
-    two (j x n) matmuls per iteration instead of j sequential dots -> MXU,
+    two (j x n) matmuls per iteration instead of j sequential dots,
   * Givens rotations maintain the QR of the Hessenberg matrix; the final
     triangular solve is an unrolled-free fori_loop back-substitution,
   * fixed-size Krylov buffers (restart+1, n); early exit via while_loop.
@@ -161,10 +161,8 @@ def gmres_ir(matvec: Callable, b: jax.Array, matvec32: Callable,
              precond32: Optional[Callable] = None, tol: float = 1e-14,
              maxiter: int = 100, restart: int = 30,
              inner_tol: float = 1e-4) -> GmresResult:
-    """Mixed-precision iterative-refinement GMRES (TPU: f64 is emulated at
-    ~10-30x the cost of native f32, and the annular solves' per-iteration
-    matvec/precond/CGS2 are ALL sub-millisecond in f32 but ~13 ms in f64 --
-    tools/annular_probe.py 2026-08-20).
+    """Mixed-precision iterative-refinement GMRES (for devices where f32
+    is much cheaper than f64).
 
     Outer loop (f64): compute the true residual r = b - A x, stop when
     ||r|| <= tol ||b||.  Inner solve (f32): one FGMRES(restart) cycle on the

@@ -2,13 +2,13 @@
 
 This is the framework's NUFFT replacement (the reference calls finufft's
 type-2 transform everywhere: radial->grid, grid->interface, grid->points;
-SURVEY.md section 2.2, finufft row).  TPU-native design: target sets are
+SURVEY.md section 2.2, finufft row).  Design: target sets are
 geometry-static, so we precompute (host, numpy) the window indices and
 weights of an exponential-of-semicircle (ES) kernel interpolation; the
 device-side apply is
     modes -> deconvolve -> zero-pad -> inverse FFT (f64 matmul DFT) ->
     one flat gather of (T, w, w) patches -> weighted reduction,
-which is a handful of MXU matmuls plus a single big gather.
+which is a handful of matmuls plus a single big gather.
 
 Accuracy: sigma=2 upsampling with w=16 gives ~1e-14 in f64 (validated in
 tests against direct trigonometric evaluation).
@@ -291,8 +291,7 @@ class HybridInterp2D:
     Built for the radial (Chebyshev-reflection) -> grid transfer where the
     first axis holds only 2M <= ~48 Fourier modes while targets number in
     the hundreds of thousands: the full window NUFFT's flat gather touches
-    w*w = 256 SCATTERED f64 elements per target (each pulling a whole TPU
-    tile from HBM), whereas here a target costs w CONTIGUOUS row slices of
+    w*w = 256 SCATTERED f64 elements per target, whereas here a target costs w CONTIGUOUS row slices of
     the (nfy, nx) fine-in-y array plus an (nx,)-long real dot -- O(T*w*nx)
     sequential reads and flops, both tiny for nx ~ 40.
 
@@ -321,7 +320,7 @@ class HybridInterp2D:
         phy = _es_kernel_ft_table(w, beta, half_w * hy, int(ky.max()) + 1)
         self.deconv_y = jnp.asarray(hy / phy[ky])                # (ny,)
         kxn = np.fft.fftfreq(nx, 1.0 / nx)
-        # exact first-axis phases, built on host (TPU f64 trig is inaccurate)
+        # exact first-axis phases, built on host
         self.Er = jnp.asarray(np.cos(np.outer(txa, kxn)))        # (T, nx)
         self.Ei = jnp.asarray(np.sin(np.outer(txa, kxn)))
         self.nfy = nfy
@@ -338,8 +337,7 @@ class HybridInterp2D:
 
         The fields ride the GEMM/gather minor axis: the fine y-pass is ONE
         matmul of width B*nx instead of B, and each stencil row-gather
-        serves every field (the gather's row fetch already pays a full
-        128-lane tile, so widening nx -> B*nx is nearly free on TPU)."""
+        serves every field."""
         B = c.re.shape[0]
         scale = self.nfy / (self.nx * self.ny)
         d = self.deconv_y * scale
@@ -456,8 +454,8 @@ class ExactInterp2D:
     """Exact type-2 evaluation for SMALL mode grids via factorized matmuls.
 
     For radial (Chebyshev-reflection) grids the mode count is tiny
-    (2M x n_b), so the exact trigonometric sum -- two tall matmuls on the
-    MXU -- beats the window NUFFT's gather on TPU and is exact to roundoff.
+    (2M x n_b), so the exact trigonometric sum -- two tall matmuls --
+    replaces the window NUFFT's gather and is exact to roundoff.
     Same interface as PeriodicInterpolator2D.
     """
 
@@ -491,7 +489,7 @@ class ExactInterp2D:
     def _many_from_modes(self, c: Cx):
         """Batched evaluation of (B, nx, ny) mode arrays -> (B, T): the
         (T, ny)/(T, nx) trig phase matrices (the dominant cost when not
-        precomputed -- f64 transcendentals are emulated on TPU) are built
+        precomputed) are built
         ONCE and shared by every field via column-stacked GEMMs."""
         B = c.re.shape[0]
         if self.precomp:
@@ -590,7 +588,7 @@ def make_interpolator(nx: int, ny: int, tx, ty, x_offset: float = 0.0,
         return ExactInterp2D(nx, ny, tx, ty, x_offset, y_offset)
     if nx <= 64:
         # radial (2M-row) mode grids: exact-in-x + row-gather NUFFT-in-y
-        # beats the (T, w*w) scattered-element gather on TPU
+        # replaces the (T, w*w) scattered-element gather
         return HybridInterp2D(nx, ny, tx, ty, x_offset=x_offset,
                               y_offset=y_offset)
     if T * 8 <= nx * ny:

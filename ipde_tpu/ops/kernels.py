@@ -3,10 +3,10 @@
 The FMM replacement (SURVEY.md 2.2: pyfmmlib2d/fmm2dpy/flexmm rows): source
 counts in this framework are small (10^3-10^4 effective QFS sources) while
 target counts are large (grid points), so dense quadrature evaluated on the
-fly is the right tool on TPU.  Targets are processed in fixed-size chunks via
-lax.map so peak memory is chunk x sources; XLA fuses the elementwise kernel
-chain.  A Pallas kernel can later replace the mapped body for the biggest
-evaluations.
+fly is the right tool.  Targets are processed in fixed-size chunks via
+lax.map so peak memory is bounded by chunk x sources; within a chunk the
+kernel evaluation and the contraction with the charges are one elementwise
+chain ending in a row sum, which XLA fuses into a single reduction.
 
 All applies take sources as precomputed weighted charges (charge * quadrature
 weight already folded in by the caller when appropriate -- here we fold
@@ -20,12 +20,10 @@ import functools
 import jax
 import jax.numpy as jnp
 
-_HIGH = jax.lax.Precision.HIGHEST
 _CHUNK = 32768
-# cap on chunk*sources: each chunked kernel body materializes several
-# (chunk, S) f64 intermediates, and XLA may keep a few loop iterations
-# live at once (measured: an 8-way unroll at chunk 32768 x S 8100 asked
-# for 30 GB of HBM) -- bound the per-iteration footprint instead
+# cap on chunk*sources: a chunk body may materialize (chunk, S) f64
+# intermediates, and XLA may keep a few loop iterations live at once --
+# bound the per-iteration footprint (5e7 elements = 400 MB per array)
 _CHUNK_ELEMS = 5 * 10**7
 
 
@@ -43,96 +41,39 @@ def _chunk_size(T: int, S: int = 0) -> int:
     return c
 
 
-def _chunked(eval_chunk, tx, ty, n_out: int = 1, S: int = 0):
+def _chunked(eval_chunk, tx, ty, S: int = 0):
     """Apply eval_chunk over fixed-size target chunks with padding."""
     T = tx.shape[0]
     chunk = _chunk_size(T, S)
     nchunks = -(-T // chunk)
     pad = nchunks * chunk - T
-    txp = jnp.pad(tx, (0, pad))
-    typ = jnp.pad(ty, (0, pad))
-    txc = txp.reshape(nchunks, chunk)
-    tyc = typ.reshape(nchunks, chunk)
+    txc = jnp.pad(tx, (0, pad)).reshape(nchunks, chunk)
+    tyc = jnp.pad(ty, (0, pad)).reshape(nchunks, chunk)
     out = jax.lax.map(lambda ab: eval_chunk(ab[0], ab[1]), (txc, tyc))
     return jax.tree_util.tree_map(lambda o: o.reshape(-1)[:T], out)
 
 
-def accurate_log(x):
-    """f64 log with ~2e-14 accuracy on TPU.
-
-    XLA's f64 (double-single) log on TPU is only ~1.4e-10 relative; summed
-    over thousands of kernel terms in a dense layer-potential apply that
-    alone floors solves at ~5e-8 (measured).  f64 exp IS accurate
-    (~1.7e-14), so refine an f32 log seed by one Newton step:
-        l0 = log(f32(x));  e = x exp(-l0) - 1;  log x = l0 + log1p(e)
-    with log1p(e) = e - e^2/2 (e ~ 1e-6, cubic term ~1e-19).  This is both
-    faster than the TPU f64 log and compiles fast (a bit-manipulation
-    variant stalled the TPU compiler for minutes per kernel).  On other
-    backends jnp.log is already correctly rounded.
-    """
-    if jax.default_backend() != "tpu":
-        return jnp.log(x)
-    # clamp below the f32 subnormal range: x=0 (coincident target/source in
-    # a masked lane) would give an -inf f32 seed and then NaN from x*exp(inf)
-    x = jnp.maximum(x, 1e-30)
-    l0 = jnp.log(x.astype(jnp.float32)).astype(jnp.float64)
-    e = x * jnp.exp(-l0) - 1.0
-    return l0 + (e - 0.5 * e * e)
-
-
 def kernel_matvec(A, q):
-    """A @ q for on-the-fly kernel matrices, TPU-safe.
+    """A @ q for a kernel matrix A built elementwise in the same program.
 
-    The TPU's emulated-f64 dot_general loses ~2^-24-scale ABSOLUTE
-    accuracy for certain operand data: real 4096x8100 BIE kernel applies
-    measured 3e-7 off while random data of the same shapes/magnitudes
-    stays at 1e-15, and the failure tracks the operands' EXPONENT
-    alignment (rescaling q by 2^7 or 2^9 fixes a case that 2^8 does not).
-    The elementwise-multiply + reduce contraction on the VPU is exact
-    (1.3e-14 on every failing case) AND ~1.5x faster here -- these
-    contractions are memory-bound, so the MXU path buys nothing."""
-    if jax.default_backend() != "tpu":
-        return jnp.matmul(A, q, precision=_HIGH)
+    Written as multiply + row sum so that XLA fuses the producer of A into
+    the reduction: A is never written to device memory.  Stored matrices
+    (QFS maps, preconditioner blocks) use jnp.matmul instead."""
     return jnp.sum(A * q[None, :], axis=1)
-
-
-def use_pallas() -> bool:
-    """Route dense applies through the fused double-single Pallas kernels
-    (ops/pallas_ds.py).  Hardware-validated 2026-08-19 (tools/pallas_probe.py:
-    agreement with the XLA-f64 path 6e-16 across all four kernels, large
-    speedups), so the default is ON when running on TPU; IPDE_PALLAS=0
-    forces the XLA path, IPDE_PALLAS=1 forces Pallas everywhere (interpret
-    mode off-TPU -- integration testing, not speed)."""
-    import os
-    flag = os.environ.get("IPDE_PALLAS", "").strip().lower()
-    if flag in ("0", "off", "false", "no"):
-        return False
-    # any other non-empty value ("1", "on", "true", ...) forces Pallas on
-    return bool(flag) or jax.default_backend() == "tpu"
 
 
 def laplace_slp_apply(sx, sy, weighted_charge, tx, ty):
     """sum_j -log|x - s_j| / (2 pi) * q_j at each target."""
-    if use_pallas():
-        from ipde_tpu.ops import pallas_ds
-        return pallas_ds.laplace_slp_apply(sx, sy, weighted_charge, tx, ty)
-
     def chunk(cx, cy):
         dx = cx[:, None] - sx[None, :]
         dy = cy[:, None] - sy[None, :]
         r2 = dx * dx + dy * dy
-        return kernel_matvec(-accurate_log(r2),
-                             weighted_charge) / (4 * jnp.pi)
+        return kernel_matvec(-jnp.log(r2), weighted_charge) / (4 * jnp.pi)
     return _chunked(chunk, jnp.asarray(tx), jnp.asarray(ty), S=sx.shape[0])
 
 
 def laplace_slp_grad_apply(sx, sy, weighted_charge, tx, ty):
     """(d/dx, d/dy) of the Laplace SLP at targets."""
-    if use_pallas():
-        from ipde_tpu.ops import pallas_ds
-        return pallas_ds.laplace_slp_grad_apply(sx, sy, weighted_charge,
-                                                tx, ty)
-
     def chunk(cx, cy):
         dx = cx[:, None] - sx[None, :]
         dy = cy[:, None] - sy[None, :]
@@ -150,82 +91,12 @@ def mh_slp_apply(sx, sy, weighted_charge, tx, ty, k: float):
     small z: K0 = -log(z/2) I0(z) + poly(z^2);  large z: asymptotic
     sqrt(pi/(2z)) e^{-z} poly(1/z).  Accuracy ~1e-14 (tested against scipy).
     """
-    if use_pallas():
-        from ipde_tpu.ops import pallas_ds
-        return pallas_ds.mh_slp_apply(sx, sy, weighted_charge, tx, ty, k)
-
     def chunk(cx, cy):
         dx = cx[:, None] - sx[None, :]
         dy = cy[:, None] - sy[None, :]
         z = k * jnp.sqrt(dx * dx + dy * dy)
-        return kernel_matvec(bessel_k0(z),
-                             weighted_charge) / (2 * jnp.pi)
+        return kernel_matvec(bessel_k0(z), weighted_charge) / (2 * jnp.pi)
     return _chunked(chunk, jnp.asarray(tx), jnp.asarray(ty), S=sx.shape[0])
-
-
-# ---------------------------------------------------------------------------
-# accurate trig (TPU f64 sin is ~5e-10; mul/add are ~2^-48-exact, so a
-# Cody-Waite reduction with f32-exact constant pieces + minimax polynomials
-# recovers ~1e-14)
-# ---------------------------------------------------------------------------
-
-# pi/2 split into pieces, the first two f32-representable (24-bit): products
-# with k < 2^24 are exact even in the TPU's hi+lo-f32 (~48-bit) f64 storage.
-_PIO2_A = 1.5707963705062866                  # float32(pi/2)
-_PIO2_B = -4.371138828673793e-08              # float32(pi/2 - A)
-_PIO2_C = -1.7150994166548195e-15             # f64 remainder
-
-_SIN_C = (-1.66666666666666657415e-01, 8.33333333333329961475e-03,
-          -1.98412698412597566432e-04, 2.75573192105007139571e-06,
-          -2.50521083854471294570e-08, 1.60590431721336942356e-10,
-          -7.64291780689104677550e-13)
-_COS_C = (4.16666666666666572212e-02, -1.38888888888873565375e-03,
-          2.48015872894752791479e-05, -2.75573143513905380209e-07,
-          2.08757232129756966631e-09, -1.13585365213876817300e-11)
-
-
-def _sin_poly(r):
-    z = r * r
-    acc = _SIN_C[-1]
-    for c in _SIN_C[-2::-1]:
-        acc = acc * z + c
-    return r + r * z * acc
-
-
-def _cos_poly(r):
-    z = r * r
-    acc = _COS_C[-1]
-    for c in _COS_C[-2::-1]:
-        acc = acc * z + c
-    return 1.0 - 0.5 * z + z * z * acc
-
-
-def _trig_reduce(x):
-    """x -> (r, q) with x = q pi/2 + r, |r| <= pi/4, q int32 mod 4.
-    Valid to ~1e-16 absolute for |x| < ~2^24 (covers every kernel-argument
-    range in this framework)."""
-    k = jnp.round(x * (2.0 / jnp.pi))
-    r = ((x - k * _PIO2_A) - k * _PIO2_B) - k * _PIO2_C
-    q = jnp.asarray(k % 4.0, jnp.int32)
-    return r, q
-
-
-def accurate_sin(x):
-    if jax.default_backend() != "tpu":
-        return jnp.sin(x)
-    r, q = _trig_reduce(x)
-    s, c = _sin_poly(r), _cos_poly(r)
-    return jnp.where(q == 0, s, jnp.where(q == 1, c,
-                     jnp.where(q == 2, -s, -c)))
-
-
-def accurate_cos(x):
-    if jax.default_backend() != "tpu":
-        return jnp.cos(x)
-    r, q = _trig_reduce(x)
-    s, c = _sin_poly(r), _cos_poly(r)
-    return jnp.where(q == 0, c, jnp.where(q == 1, -s,
-                     jnp.where(q == 2, -c, s)))
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +126,7 @@ def _k0_small(z):
         H = H + 1.0 / m
         acc = acc + term * H
     zs = jnp.maximum(z, 1e-30)   # f32-representable: masked z=0 lanes stay finite
-    return -(accurate_log(0.5 * zs) + gamma) * _i0_series(z) + acc
+    return -(jnp.log(0.5 * zs) + gamma) * _i0_series(z) + acc
 
 
 def _k0_large(z):
@@ -325,7 +196,7 @@ def expint_e1(x):
     for m in range(1, 18):
         term = term * (-xs) / m
         acc = acc - term / m
-    e1_small = -gamma - accurate_log(xs) + acc
+    e1_small = -gamma - jnp.log(xs) + acc
     xm = jnp.clip(x, 1.0, 44.0)
     e1_mid = _cheb_e1(xm)
     return jnp.where(small, e1_small, e1_mid)
@@ -410,8 +281,8 @@ def _j_asym(z, nu: int, terms: int = 11):
             sq = -sq
     # J_nu = sqrt(2/(pi z)) [P cos(w) - Q sin(w)], w = z - (2 nu + 1) pi/4
     w = zs - (2 * nu + 1) * (jnp.pi / 4.0)
-    return jnp.sqrt(2.0 / (jnp.pi * zs)) * (P * accurate_cos(w)
-                                            - Q * accurate_sin(w))
+    return jnp.sqrt(2.0 / (jnp.pi * zs)) * (P * jnp.cos(w)
+                                            - Q * jnp.sin(w))
 
 
 def _bessel_j(z, nu: int):
@@ -459,7 +330,7 @@ def _k1_small(z):
         Hm1 = Hm1 + 1.0 / (m + 1)
         acc = acc + (Hm + Hm1) * term
     corr = 0.25 * z * acc
-    return 1.0 / zs + (accurate_log(0.5 * zs) + gamma) * i1 - corr
+    return 1.0 / zs + (jnp.log(0.5 * zs) + gamma) * i1 - corr
 
 
 def _k1_large(z):

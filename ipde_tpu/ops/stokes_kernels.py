@@ -21,16 +21,12 @@ Vector densities are packed [fx (N,) ; fy (N,)] -> matrices are (2T, 2S).
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from ipde_tpu.geometry.curve import BoundaryCurve
-from ipde_tpu.ops.kernels import accurate_log, kernel_matvec
+from ipde_tpu.ops.kernels import _chunked, kernel_matvec
 from ipde_tpu.ops.singular import log_quad_circulant
-
-_HIGH = jax.lax.Precision.HIGHEST
-_CHUNK = 32768
 
 
 def _geom(src: BoundaryCurve, tx, ty):
@@ -158,10 +154,6 @@ def stokes_pressure_fix(src: BoundaryCurve, tx_n, ty_n) -> np.ndarray:
 
 def stokes_slp_apply(sx, sy, wfx, wfy, tx, ty):
     """Velocity (u, v) and pressure p at targets from weighted forces."""
-    from ipde_tpu.ops.kernels import use_pallas
-    if use_pallas():
-        from ipde_tpu.ops import pallas_ds
-        return pallas_ds.stokes_slp_apply(sx, sy, wfx, wfy, tx, ty)
     sx = jnp.asarray(sx)
     sy = jnp.asarray(sy)
     wfx = jnp.asarray(wfx)
@@ -171,20 +163,12 @@ def stokes_slp_apply(sx, sy, wfx, wfy, tx, ty):
         dx = cx[:, None] - sx[None, :]
         dy = cy[:, None] - sy[None, :]
         r2 = dx * dx + dy * dy
-        ilr = -0.5 * accurate_log(r2)
+        ilr = -0.5 * jnp.log(r2)
         ir2 = 1.0 / r2
-        mm = kernel_matvec      # TPU-safe contraction (see ops/kernels.py)
+        mm = kernel_matvec
         u = (mm(ilr + dx * dx * ir2, wfx) + mm(dx * dy * ir2, wfy)) / (4 * jnp.pi)
         v = (mm(dx * dy * ir2, wfx) + mm(ilr + dy * dy * ir2, wfy)) / (4 * jnp.pi)
         p = (mm(dx * ir2, wfx) + mm(dy * ir2, wfy)) / (2 * jnp.pi)
         return u, v, p
 
-    T = jnp.asarray(tx).shape[0]
-    from ipde_tpu.ops.kernels import _chunk_size
-    csz = _chunk_size(T, int(sx.shape[0]))
-    nch = -(-T // csz)
-    pad = nch * csz - T
-    txc = jnp.pad(jnp.asarray(tx), (0, pad)).reshape(nch, csz)
-    tyc = jnp.pad(jnp.asarray(ty), (0, pad)).reshape(nch, csz)
-    u, v, p = jax.lax.map(lambda ab: chunk(ab[0], ab[1]), (txc, tyc))
-    return u.ravel()[:T], v.ravel()[:T], p.ravel()[:T]
+    return _chunked(chunk, jnp.asarray(tx), jnp.asarray(ty), S=int(sx.shape[0]))

@@ -18,7 +18,7 @@ stride chosen so the bound above is below the solve tolerance.  Typical
 geometry (Chebyshev rows over an M*h annulus, sources 3x-upsampled QFS
 curves) cuts the pair count ~2.5-4x at < 1e-13 added error.
 
-TPU-first design note: the groups are fixed at plan-build time (static
+Design note: the groups are fixed at plan-build time (static
 shapes under jit); each group is one chunked dense apply.
 """
 

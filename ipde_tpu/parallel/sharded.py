@@ -1,7 +1,7 @@
 """Multi-chip sharding of the hot evaluation paths (jax.sharding + shard_map).
 
 The reference is single-process (SURVEY.md 2.3); the natural parallel axes on
-a TPU mesh are:
+a device mesh are:
   (a) the target-point axis of dense layer-potential evaluation -- shard
       targets, replicate sources, no communication (DP-like),
   (b) the source axis -- shard sources, psum partial potentials (TP-like),
@@ -12,17 +12,13 @@ a TPU mesh are:
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from ipde_tpu.ops.kernels import accurate_log, kernel_matvec
-
-_HIGH = jax.lax.Precision.HIGHEST
+from ipde_tpu.ops.kernels import kernel_matvec
 
 
 def make_mesh(n_devices: int = None, axis: str = "p") -> Mesh:
@@ -45,13 +41,9 @@ def sharded_laplace_slp_apply(mesh: Mesh, sx, sy, weighted_charge, tx, ty,
     typ = jnp.pad(jnp.asarray(ty), (0, Tp - T))
 
     def local(sx_, sy_, q_, ctx, cty):
-        from ipde_tpu.ops.kernels import use_pallas
-        if use_pallas():
-            from ipde_tpu.ops import pallas_ds
-            return pallas_ds.laplace_slp_apply(sx_, sy_, q_, ctx, cty)
         dx = ctx[:, None] - sx_[None, :]
         dy = cty[:, None] - sy_[None, :]
-        return kernel_matvec(-accurate_log(dx * dx + dy * dy),
+        return kernel_matvec(-jnp.log(dx * dx + dy * dy),
                              q_) / (4 * jnp.pi)
 
     f = shard_map(local, mesh=mesh,
@@ -73,10 +65,6 @@ def sharded_mh_slp_apply(mesh: Mesh, sx, sy, weighted_charge, tx, ty,
     typ = jnp.pad(jnp.asarray(ty), (0, Tp - T))
 
     def local(sx_, sy_, q_, ctx, cty):
-        from ipde_tpu.ops.kernels import use_pallas
-        if use_pallas():
-            from ipde_tpu.ops import pallas_ds
-            return pallas_ds.mh_slp_apply(sx_, sy_, q_, ctx, cty, k)
         dx = ctx[:, None] - sx_[None, :]
         dy = cty[:, None] - sy_[None, :]
         z = k * jnp.sqrt(dx * dx + dy * dy)
@@ -101,15 +89,11 @@ def sharded_stokes_slp_apply(mesh: Mesh, sx, sy, wfx, wfy, tx, ty,
     typ = jnp.pad(jnp.asarray(ty), (0, Tp - T))
 
     def local(sx_, sy_, fx_, fy_, ctx, cty):
-        from ipde_tpu.ops.kernels import use_pallas
-        if use_pallas():
-            from ipde_tpu.ops import pallas_ds
-            return pallas_ds.stokes_slp_apply(sx_, sy_, fx_, fy_, ctx, cty)
         dx = ctx[:, None] - sx_[None, :]
         dy = cty[:, None] - sy_[None, :]
         r2 = dx * dx + dy * dy
         ir2 = 1.0 / r2
-        logr = 0.5 * accurate_log(r2)
+        logr = 0.5 * jnp.log(r2)
         u = (kernel_matvec(-logr + dx * dx * ir2, fx_)
              + kernel_matvec(dx * dy * ir2, fy_)) / (4 * jnp.pi)
         v = (kernel_matvec(dx * dy * ir2, fx_)
@@ -140,7 +124,7 @@ def source_sharded_laplace_slp_apply(mesh: Mesh, sx, sy, weighted_charge,
     def local(sx_, sy_, q_, ctx, cty):
         dx = ctx[:, None] - sx_[None, :]
         dy = cty[:, None] - sy_[None, :]
-        part = kernel_matvec(-accurate_log(dx * dx + dy * dy),
+        part = kernel_matvec(-jnp.log(dx * dx + dy * dy),
                              q_) / (4 * jnp.pi)
         return jax.lax.psum(part, axis)
 

@@ -1,19 +1,19 @@
-"""Spectrally accurate scalar solvers on the annular strip (TPU-native).
+"""Spectrally accurate scalar solvers on the annular strip.
 
 Solves (helmholtz_k^2 - Lap) u = f on the boundary-fitted annulus with Robin
 boundary conditions at both radial edges, using a Chebyshev-tau (radial) x
 Fourier (tangential) discretization and preconditioned GMRES.
 
 Reference semantics: ipde/annular/modified_helmholtz.py:90-203 and
-ipde/annular/poisson.py.  TPU-first redesign:
+ipde/annular/poisson.py.  Redesign for the accelerator:
   * the Krylov iteration runs entirely in REAL space: the matvec is small
     real f64 GEMMs (Chebyshev operators on the left, the spectral tangential
     differentiation circulant on the right) plus elementwise metric products
     -- no complex arithmetic, no FFTs in the hot loop,
   * the preconditioner is the exact inverse of the circle-approximation
     operator: rfft (as f64 matmuls) -> batched (nk, M, M) real inverse apply
-    (one einsum -> MXU) -> irfft; the per-mode inverses are precomputed on
-    host with numpy (TPU has no f64 LU),
+    (one einsum) -> irfft; the per-mode inverses are precomputed on
+    host with numpy,
   * GMRES is the jitted lax.while_loop implementation in ipde_tpu.ops.gmres.
 
 Residual/unknown layout: u is (M, n) nodal values (row 0 = r=lb side);
@@ -41,16 +41,11 @@ _HIGH = jax.lax.Precision.HIGHEST
 
 def use_annular_mp() -> bool:
     """Mixed-precision annular GMRES (ops/gmres.gmres_ir: f32 inner FGMRES
-    cycles + f64 residual replay).  Default ON on TPU, where f64 arithmetic
-    is emulated ~10-30x slower than native f32 and the solve accuracy is
-    set by the f64 replay, not the inner precision (measured e2e err
-    unchanged, tier-1 annular phase ~200 -> <100 ms).  IPDE_ANNULAR_MP=0/1
-    overrides."""
+    cycles + f64 residual replay), on with IPDE_ANNULAR_MP=1.  The default
+    is plain f64 GMRES; the solve accuracy is set by the f64 replay either
+    way."""
     import os
-    env = os.environ.get("IPDE_ANNULAR_MP", "").strip()
-    if env in ("0", "1"):
-        return env == "1"
-    return jax.default_backend() == "tpu"
+    return os.environ.get("IPDE_ANNULAR_MP", "").strip() == "1"
 
 
 def cast_ops_f32(ops):
@@ -94,8 +89,7 @@ def _matvec(ops: AnnularOps, u_flat: jax.Array, M: int, n: int) -> jax.Array:
 
 
 def use_f32_precond(tol: float = 0.0) -> bool:
-    """IPDE_PRECOND_F32=1 runs the GMRES preconditioner in f32 (native MXU
-    speed instead of emulated f64), via FGMRES (an f32 M is not exactly
+    """IPDE_PRECOND_F32=1 runs the GMRES preconditioner in f32, via FGMRES (an f32 M is not exactly
     linear, so the preconditioned basis must be stored -- ops/gmres.py
     flexible=True).  Accuracy of the CONVERGED solution is unaffected.
 

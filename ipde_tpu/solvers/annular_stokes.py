@@ -1,4 +1,4 @@
-"""Spectrally accurate Stokes solver on the annular strip (TPU-native).
+"""Spectrally accurate Stokes solver on the annular strip.
 
 Solves  -mu lap(u) + grad p = f,  div u = 0  in the boundary-fitted annulus,
 velocity (Dirichlet) BCs at both radial edges, unknowns in (r, t) components:
@@ -108,7 +108,7 @@ def _matvec(ops: StokesOps, v, M: int, n: int):
     fp = fp + pin
     # alt's dtype must FOLLOW the data: a f64 literal here silently
     # promotes the whole f32 inner matvec of the mixed-precision path
-    # back to emulated f64 (measured hazard, PROGRESS round-5 item 3)
+    # back to f64
     alt = (1 - 2 * (jnp.arange(n) % 2)).astype(p.dtype)
     pin2 = jnp.mean(jnp.matmul(ops.VI1_row0, p * alt, precision=_HIGH))
     fp = fp + pin2 * alt
@@ -129,7 +129,7 @@ def _precond(ops: StokesOps, v, M: int, n: int, f32pc: bool = False):
     stacked = jnp.concatenate([fr, ft_, fp], axis=0)   # (3M-1, n)
     if f32pc:
         # f32 preconditioner: valid for right preconditioning (see
-        # annular_scalar.use_f32_precond), native-MXU speed
+        # annular_scalar.use_f32_precond)
         tp32 = tan_cast(ops.tan, jnp.float32)
         c = tan_rfft(stacked.astype(jnp.float32), tp32)
         kre = ops.Kinv_re.astype(jnp.float32)

@@ -46,7 +46,7 @@ def stokes_qfs(curve, source, interior: bool, slp: bool = True,
     least-squares match is well posed; matched data is incompressible, so
     the completion component of the solution vanishes."""
     from ipde_tpu.qfs.qfs import auto_backend
-    backend = backend or auto_backend(curve.N)
+    backend = backend or auto_backend()
     jump = -0.5 if interior else 0.5
     forms = []
     if backend == "device":
@@ -111,7 +111,7 @@ class _StokesHelper:
                                 build_u2s=multi)
         if multi:
             from ipde_tpu.qfs.qfs import auto_backend
-            if auto_backend(ifc.N) == "device":
+            if auto_backend() == "device":
                 from ipde_tpu.ops import forms_dev as fd
                 self.own_src_to_ifc = fd.stokes_slp_naive_dev(
                     self.grid_source, ifc.x, ifc.y)

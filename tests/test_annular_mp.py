@@ -2,8 +2,8 @@
 f32 inner FGMRES cycles + f64 residual replay must reproduce the all-f64
 solve to the requested tolerance, with an HONEST (recomputed) residual.
 
-On TPU this path is default-on (f64 is emulated); these tests force it on
-the CPU backend where both paths are exact, pinning the refinement logic.
+The default is plain f64 GMRES; these tests force the mixed path on,
+pinning the refinement logic.
 """
 
 import numpy as np
@@ -26,6 +26,11 @@ def _geometry(nb=128, M=12):
 
 
 def test_mp_flag_gate(monkeypatch):
+    # the default names no platform: f64 GMRES unless asked for
+    monkeypatch.delenv("IPDE_ANNULAR_MP", raising=False)
+    assert not use_annular_mp()
+    monkeypatch.setattr("jax.default_backend", lambda: "gpu")
+    assert not use_annular_mp()
     monkeypatch.setenv("IPDE_ANNULAR_MP", "1")
     assert use_annular_mp()
     monkeypatch.setenv("IPDE_ANNULAR_MP", "0")

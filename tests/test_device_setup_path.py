@@ -15,7 +15,7 @@ from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary
 @pytest.fixture
 def device_backend(monkeypatch):
     monkeypatch.setattr(qfs_mod, "auto_backend",
-                        lambda n=None: "device")
+                        lambda: "device")
 
 
 def _geometry(nb=300, M=12):

@@ -1,28 +1,8 @@
-"""Device special functions (trig reduction, Bessel J) vs scipy/numpy."""
+"""Device special functions (Bessel J) vs scipy."""
 
 import numpy as np
 
-from ipde_tpu.ops.kernels import (_cos_poly, _sin_poly, _trig_reduce,
-                                  accurate_cos, accurate_sin, bessel_j0,
-                                  bessel_j1, bessel_j2)
-
-
-def test_trig_reduction_polys():
-    # On CPU accurate_sin == jnp.sin; test the reduction machinery directly.
-    rng = np.random.default_rng(0)
-    x = np.concatenate([rng.uniform(-1e4, 1e4, 4000),
-                        rng.uniform(-2, 2, 1000), [0.0, 1e-18, np.pi]])
-    import jax.numpy as jnp
-    r, q = _trig_reduce(jnp.asarray(x))
-    r, q = np.asarray(r), np.asarray(q)
-    s, c = np.asarray(_sin_poly(jnp.asarray(r))), \
-        np.asarray(_cos_poly(jnp.asarray(r)))
-    sin_rec = np.choose(q, [s, c, -s, -c])
-    cos_rec = np.choose(q, [c, -s, -c, s])
-    assert np.abs(sin_rec - np.sin(x)).max() < 5e-15
-    assert np.abs(cos_rec - np.cos(x)).max() < 5e-15
-    assert np.abs(np.asarray(accurate_sin(jnp.asarray(x))) - np.sin(x)).max() \
-        < 5e-15
+from ipde_tpu.ops.kernels import bessel_j0, bessel_j1, bessel_j2
 
 
 def test_bessel_j():

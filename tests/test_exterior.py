@@ -1,4 +1,4 @@
-"""Exterior-domain end-to-end coverage (VERDICT r1 missing item 6).
+"""Exterior-domain end-to-end coverage.
 
 The reference exercises interior=False geometry in
 examples/embedded_boundary.py:17; its exterior SOLVES appear as inclusion

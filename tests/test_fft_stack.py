@@ -14,8 +14,8 @@ from ipde_tpu.ops.fourier import FourierPlan2D
 
 @pytest.fixture(autouse=True)
 def _enable_stack(monkeypatch):
-    # the stacked paths are gated off by default (slower on the current
-    # TPU toolchain); they stay correctness-tested here
+    # the stacked paths are gated off by default; they stay
+    # correctness-tested here
     monkeypatch.setenv("IPDE_FFT_STACK", "1")
 
 

@@ -1,4 +1,4 @@
-"""Solver/helper reuse for moving-boundary runs (VERDICT r2 item 3).
+"""Solver/helper reuse for moving-boundary runs.
 
 When geometry is regenerated with the same (n, M, radial bounds) and a
 nearby radius, a new solver built with helpers= must REUSE the previous

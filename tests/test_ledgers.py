@@ -1,4 +1,4 @@
-"""Reference convergence-ledger parity (VERDICT r1 item 7).
+"""Reference convergence-ledger parity.
 
 Encodes the reference's hard-coded error tables and asserts this framework
 meets or beats them at matched (or smaller) boundary resolution:
@@ -127,6 +127,6 @@ def test_three_body_stokes_paper_case():
     # measured 4.9e-6 at outer nb=300 / inclusions nb=160; the reference
     # curve runs 2.59e-1 (nb=100) -> 4.83e-7 (nb=400), so this sits on or
     # below their convergence curve at ~25% fewer boundary points.  (CPU
-    # XLA cannot compile the nb=400 annular Stokes GMRES -- see memory
-    # notes -- so the exact nb=400 row is asserted on TPU runs only.)
+    # XLA cannot compile the nb=400 annular Stokes GMRES, so the exact
+    # nb=400 row is not asserted here.)
     assert max(ue, ve) < 1e-5, (ue, ve)

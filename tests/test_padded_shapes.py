@@ -6,7 +6,7 @@ indices, dropped by jax's default FILL_OR_DROP mode).
 
 Reference analogue: none -- the reference is eager numpy and rebuilds
 everything per step (ipde/advection/fe_advector.py:60-71); fixed shapes
-are the TPU-native requirement (SURVEY.md section 7 design tenets).
+are what jit needs to reuse a compiled program (SURVEY.md section 7).
 """
 
 import numpy as np

@@ -1,5 +1,5 @@
 """Planified-jit solve must match the eager path, leak no tracers, and
-report jit-safe solve stats (VERDICT r1 items 1 and 8)."""
+report jit-safe solve stats."""
 
 import numpy as np
 import pytest

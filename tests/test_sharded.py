@@ -1,5 +1,5 @@
 """Mesh-sharded applies and the first-class use_mesh solve path must agree
-with the single-device path to roundoff (VERDICT r1 item 3; conftest forces
+with the single-device path to roundoff (conftest forces
 an 8-virtual-device CPU backend)."""
 
 import numpy as np
@@ -81,8 +81,8 @@ def test_use_mesh_solve_matches_single_device():
 def test_use_mesh_two_body_sharded_fft_and_boundary_axis():
     """Multi-boundary use_mesh solve: exercises the SHARDED 2D grid FFT
     (per-pass sharding constraints + the all-to-all between passes) and
-    the boundary-axis-sharded batched annular GMRES (VERDICT r4 item 7 /
-    SURVEY.md 2.3(b)(d)); must agree with the single-device solve."""
+    the boundary-axis-sharded batched annular GMRES (SURVEY.md
+    2.3(b)(d)); must agree with the single-device solve."""
     import sys
     import os
     sys.path.insert(0, os.path.dirname(os.path.dirname(

@@ -1,8 +1,8 @@
 """On-chip cost anatomy of the annular Stokes GMRES at bench sizes.
 
-Times (with in-jit repetition, honest scalar-fetch sync):
+Times (with in-jit repetition; each call ends in block_until_ready):
   matvec / preconditioner / CGS2 orthogonalization, each in f64 and f32,
-  plus the full GMRES solve -- to locate where the ~13 ms/iteration goes
+  plus the full GMRES solve -- to locate where an iteration's time goes
   and what a mixed-precision inner loop can save.
 
 Usage: BENCH_NB=1200 BENCH_M=16 python tools/annular_probe.py
@@ -20,8 +20,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
     jax.config.update("jax_enable_x64", True)
-    if os.environ.get("BENCH_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["BENCH_PLATFORM"])
     import jax.numpy as jnp
     from ipde_tpu.geometry.annular import AnnularGeometry, AnnularMetric
     from ipde_tpu.geometry.curve import star
@@ -42,17 +40,9 @@ def main():
     rng = np.random.default_rng(0)
     v0 = jnp.asarray(rng.standard_normal(N))
 
-    def sync(x):
-        return float(jnp.sum(x.ravel()[:1]))
+    sync = jax.block_until_ready
 
-    tiny = jax.jit(lambda x: x + 1.0)
-    _ = float(tiny(jnp.asarray(0.0)))
-    t0 = time.time()
-    for _ in range(5):
-        _ = float(tiny(jnp.asarray(0.0)))
-    lat = (time.time() - t0) / 5
-    print(f"latency {lat*1e3:.1f} ms backend={jax.default_backend()} "
-          f"N={N}", flush=True)
+    print(f"device={jax.devices()[0].device_kind} N={N}", flush=True)
 
     R = 16
 
@@ -65,7 +55,7 @@ def main():
             t0 = time.time()
             o = jf(*args)
             sync(jax.tree_util.tree_leaves(o)[0])
-            ts.append(time.time() - t0 - lat)
+            ts.append(time.time() - t0)
         ms = float(np.median(ts)) * 1e3 / R
         print(f"{tag:<26} {ms:8.3f} ms/app", flush=True)
         return out
@@ -128,7 +118,7 @@ def main():
         t0 = time.time()
         o = jf()
         sync(o[0])
-        ts.append(time.time() - t0 - lat)
+        ts.append(time.time() - t0)
     iters = int(out[3])
     ms = float(np.median(ts)) * 1e3
     print(f"{'full GMRES solve':<26} {ms:8.1f} ms   ({iters} iters, "

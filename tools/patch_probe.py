@@ -5,7 +5,7 @@ cumsum + segment-diff + small scatter, and the cumsum-by-triangular-matmul
 replacement.  Prints per-op times so the pull pipeline's cost is
 attributable (gather vs cumsum vs scatter).
 
-Usage: python tools/patch_probe.py   (BENCH_PLATFORM=cpu for local)
+Usage: python tools/patch_probe.py   (JAX_PLATFORMS=cpu for a local run)
 """
 
 import os
@@ -20,21 +20,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
     jax.config.update("jax_enable_x64", True)
-    if os.environ.get("BENCH_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["BENCH_PLATFORM"])
     import jax.numpy as jnp
 
-    def sync(x):
-        return float(np.asarray(jax.tree_util.tree_leaves(x)[0]).ravel()[0])
+    sync = jax.block_until_ready
 
-    tiny = jax.jit(lambda x: x + 1.0)
-    _ = float(tiny(jnp.asarray(0.0)))
-    t0 = time.time()
-    for _ in range(5):
-        _ = float(tiny(jnp.asarray(0.0)))
-    lat = (time.time() - t0) / 5
-    print(f"latency {lat*1e3:.1f} ms backend={jax.default_backend()}",
-          flush=True)
+    print(f"device={jax.devices()[0].device_kind}", flush=True)
 
     def timeit(f, *args):
         jf = jax.jit(f)
@@ -43,7 +33,7 @@ def main():
         for _ in range(3):
             t0 = time.time()
             sync(jf(*args))
-            ts.append(time.time() - t0 - lat)
+            ts.append(time.time() - t0)
         return float(np.median(ts)) * 1e3
 
     S, P = 3600, 45

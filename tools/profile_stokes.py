@@ -1,8 +1,8 @@
-"""Per-phase timing of the flagship STOKES solve at bench sizes (TPU).
+"""Per-phase timing of the flagship STOKES solve at bench sizes .
 
 The Stokes twin of tools/profile_solve.py: times the phases of the
-bench.py north-star configuration (BENCH_NB/BENCH_M envs) with honest
-scalar-fetch sync.  Coarse phases use public APIs so the tool survives
+bench.py north-star configuration (BENCH_NB/BENCH_M envs); every timed
+call ends in block_until_ready.  Coarse phases use public APIs so the tool survives
 refactors:
     VG Stokeslet apply / annular Stokes GMRES / solver-only /
     BIE apply_bc / FULL solve
@@ -18,14 +18,12 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from profile_solve import sync, timeit  # noqa: E402  (same directory)
+from profile_solve import timeit  # noqa: E402  (same directory)
 
 
 def main():
     import jax
     jax.config.update("jax_enable_x64", True)
-    if os.environ.get("BENCH_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["BENCH_PLATFORM"])
     import jax.numpy as jnp
     from ipde_tpu.functions import BoundaryFunction, EmbeddedFunction
     from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection
@@ -69,15 +67,8 @@ def main():
     t_bie = time.time() - t1
     print(f"setup: geom+register {t_geom:.1f}s solver {t_solver:.1f}s "
           f"bie {t_bie:.1f}s grid={grid.shape} "
-          f"backend={jax.default_backend()}", flush=True)
+          f"device={jax.devices()[0].device_kind}", flush=True)
 
-    tiny = jax.jit(lambda x: x + 1.0)
-    _ = float(tiny(jnp.asarray(0.0)))
-    t0 = time.time()
-    for _ in range(5):
-        _ = float(tiny(jnp.asarray(0.0)))
-    lat = (time.time() - t0) / 5
-    print(f"latency {lat*1e3:.1f} ms", flush=True)
 
     h = solver.helpers[0]
 
@@ -87,7 +78,7 @@ def main():
         S2 = 2 * solver.src_Ns[0]
         qf = jnp.asarray(np.random.default_rng(0).standard_normal(S2))
         vg = planified(lambda q: ge(q[:S2 // 2], q[S2 // 2:]), solver)
-        ms, _ = timeit(vg, qf, latency=lat)
+        ms, _ = timeit(vg, qf)
         print(f"VG Stokeslet apply   {ms:8.1f} ms", flush=True)
 
     # 2. annular Stokes GMRES
@@ -98,7 +89,7 @@ def main():
             h.metric, fr_, fr_, zero, zero, zero, zero,
             tol=1e-12, maxiter=100, restart=30)
         return ur, st
-    ms, (_, st) = timeit(planified(annular, solver), fr, latency=lat)
+    ms, (_, st) = timeit(planified(annular, solver), fr)
     print(f"annular Stokes GMRES {ms:8.1f} ms  "
           f"iters={int(st['iterations'])}", flush=True)
 
@@ -124,7 +115,7 @@ def main():
         return outs[0], uh, vh, ph
 
     jb = planified(box_solve, solver)
-    ms, (_, uh, vh, ph) = timeit(jb, fu.grid, fv.grid, latency=lat)
+    ms, (_, uh, vh, ph) = timeit(jb, fu.grid, fv.grid)
     print(f"box solve            {ms:8.1f} ms", flush=True)
 
     def ifc_stack(uhr, uhi, vhr, vhi, phr, phi_):
@@ -133,7 +124,7 @@ def main():
         return ebc.interface_values_and_grads(stack3)
 
     ji = planified(ifc_stack, solver)
-    ms, _ = timeit(ji, uh.re, uh.im, vh.re, vh.im, ph.re, ph.im, latency=lat)
+    ms, _ = timeit(ji, uh.re, uh.im, vh.re, vh.im, ph.re, ph.im)
     print(f"interface vals+grad  {ms:8.1f} ms", flush=True)
 
     # densities (traction + QFS applies) on dummy annular output
@@ -144,7 +135,7 @@ def main():
                                   zero)
         return sg
     jd = planified(dens, solver)
-    ms, _ = timeit(jd, zr, latency=lat)
+    ms, _ = timeit(jd, zr)
     print(f"densities+QFS        {ms:8.1f} ms", flush=True)
 
     # correct: stratified radial apply + u2s
@@ -155,7 +146,7 @@ def main():
     def corr(rr, sg, sr):
         return h.correct((rr, rr, rr), sg, sr, zero, zero, True)[0]
     jc = planified(corr, solver)
-    ms, _ = timeit(jc, zr, sg0, sr0, latency=lat)
+    ms, _ = timeit(jc, zr, sg0, sr0)
     print(f"correct (radial)     {ms:8.1f} ms", flush=True)
 
     # radial -> grid merge x3
@@ -165,7 +156,7 @@ def main():
         c_ = ebc.interpolate_radial_to_grid([rr], g1)
         return a + b + c_
     jm = planified(merge, solver)
-    ms, _ = timeit(jm, fu.grid, zr, latency=lat)
+    ms, _ = timeit(jm, fu.grid, zr)
     print(f"radial->grid x3      {ms:8.1f} ms", flush=True)
 
     # 3. solver-only inhomogeneous solve
@@ -175,7 +166,7 @@ def main():
             tol=1e-12, maxiter=100, restart=30)
         return u.grid, st["annular_iterations"]
     ms, _ = timeit(planified(solver_only, solver), fu.grid, fu.radials[0],
-                   fv.grid, fv.radials[0], latency=lat)
+                   fv.grid, fv.radials[0])
     print(f"solver only          {ms:8.1f} ms", flush=True)
 
     # 4. BIE apply_bc on a solved field
@@ -187,7 +178,7 @@ def main():
             EmbeddedFunction(pg, [prr]), bc_u, bc_v)[0].grid,
         solver, bie)
     ms, _ = timeit(run_bie, u0.grid, u0.radials[0], v0.grid, v0.radials[0],
-                   p0.grid, p0.radials[0], latency=lat)
+                   p0.grid, p0.radials[0])
     print(f"BIE apply_bc         {ms:8.1f} ms", flush=True)
 
     # 5. FULL solve
@@ -198,7 +189,7 @@ def main():
         u, v, p = bie.apply_bc(u, v, p, bc_u, bc_v)
         return u.grid
     ms, _ = timeit(planified(full, solver, bie), fu.grid, fu.radials[0],
-                   fv.grid, fv.radials[0], latency=lat)
+                   fv.grid, fv.radials[0])
     print(f"FULL solve           {ms:8.1f} ms", flush=True)
 
 
